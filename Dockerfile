@@ -1,5 +1,5 @@
-# CPU-only container (tests + decoding); for TPU runs install the matching
-# jax[tpu] wheel instead.
+# CPU-only container (tests + decoding); for NVIDIA GPU runs install the
+# matching jax[cuda12] wheel instead.
 FROM python:3.12-slim
 RUN apt-get update && apt-get install -y --no-install-recommends g++ make \
     && rm -rf /var/lib/apt/lists/*

@@ -51,15 +51,10 @@ Decoder flags:
 \t-d meteor : Meteor QPSK sync detector
 \t--mesh=<n> : shard the NOAA/PSK decode over an n-device time mesh
 \t--segments=<n> : segment-parallel PLL scan for funcube/meteor
-\t--resident : upload the capture once into device HBM and decode from
+\t--resident : upload the capture once into device memory and decode from
 \t             there (fastest path; falls back to the blocked feed when
-\t             the capture exceeds device memory)
+\t             the capture exceeds the resident capacity)
 """)
-
-
-# --resident capacity cap: raw bytes uploaded to HBM must leave room for the
-# decode working set (v5e has 16 GB; the NOAA working set is chunk-bounded)
-RESIDENT_MAX_BYTES = 8 << 30
 
 
 def _make_resident(sigsrc):
@@ -74,10 +69,12 @@ def _make_resident(sigsrc):
                         "using the blocked feed")
         return None
     n = int(sigsrc.length)
-    if 2 * n > RESIDENT_MAX_BYTES:
-        logging.warning("--resident: capture is %.1f GB of raw bytes "
-                        "(cap %.1f GB); using the blocked feed",
-                        2 * n / 2**30, RESIDENT_MAX_BYTES / 2**30)
+    if not sources.fits_resident(n):
+        logging.warning("--resident: %d samples (%.1f GB of raw bytes) "
+                        "exceed the resident capacity (%d samples, %s "
+                        "bytes); using the blocked feed",
+                        n, 2 * n / 2**30, sources.RESIDENT_MAX_SAMPLES,
+                        sources.resident_max_bytes())
         return None
     try:
         return sources.DeviceRawSource.from_host_bytes(
@@ -188,8 +185,7 @@ def main(argv=None) -> int:
             src_i = sigsrc
             if resident:
                 # one-time upload; decoders detect read_raw_device and take
-                # the single-dispatch resident paths (e.g. NOAA 90x real
-                # time vs 10x feed-inclusive, BENCH_NOAA_LONG_r04)
+                # the single-dispatch resident paths
                 t_up = perf_counter()
                 wrapped = _make_resident(sigsrc)
                 if wrapped is not None:

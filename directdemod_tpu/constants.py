@@ -1,6 +1,6 @@
-"""Tunables and protocol constants for the TPU-native software-radio framework.
+"""Tunables and protocol constants for the software-radio framework.
 
-Numeric values mirror the reference semantics (`/root/reference/directdemod/constants.py:1-40`)
+Numeric values mirror the reference semantics (reference `directdemod/constants.py:1-40`)
 so decoded outputs are comparable; layout and naming are our own.
 """
 

@@ -2,10 +2,9 @@
 
 The stream runtime's host side (file read + uint8 unpack + device upload)
 overlaps with device compute: a background thread stays `depth` blocks ahead,
-so the TPU never waits on the memmap. This is the TPU-native replacement for
-the reference's synchronous `source.read` inside the chunk loop
-(ref decode_noaa.py:619-623); with the native converter the host feed runs at
-~54 Msamp/s and the device chain at ~100 Gsamp/s, so overlap hides the entire
+so the device never waits on the memmap. This replaces the reference's
+synchronous `source.read` inside the chunk loop (ref decode_noaa.py:619-623):
+the device chain is far faster than the host feed, so overlap hides the
 device time behind IO.
 """
 from __future__ import annotations
@@ -55,7 +54,7 @@ class BlockFeeder:
                     return
                 if self.raw and callable(getattr(self.source,
                                                  "read_raw_device", None)):
-                    # capture already resident in HBM: slice on device, no
+                    # capture already resident on device: slice there, no
                     # host link traffic (io.sources.DeviceRawSource)
                     block = self.source.read_raw_device(s, e)
                     if self.sharding is not None:

@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ IO runtime (native/iqio.cpp).
 
 The shared library provides a multithreaded uint8->complex64 IQ unpacker (the
-host-side bottleneck when feeding the TPU at GB/s). Built lazily via
+host-side bottleneck when feeding the device at GB/s). Built lazily via
 `make -C native`; everything degrades to NumPy when the library is absent.
 """
 from __future__ import annotations

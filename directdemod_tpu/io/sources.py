@@ -17,6 +17,7 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from .. import constants
@@ -202,15 +203,43 @@ class ArraySource:
     limitData = limit
 
 
-class DeviceRawSource:
-    """IQ capture resident in HBM as raw interleaved uint8 bytes.
+# Device-resident captures: sample positions on the device are int32
+# (ROADMAP R1), so no capture over 2^31 samples may be uploaded whole, and
+# the decode needs room beside the capture: one padded copy of its bytes
+# (DdcFm._resident_scan), per-sample outputs and chunk-bounded working
+# memory. A device that reports no memory limit (the CPU) is capped by the
+# sample count alone.
+RESIDENT_MAX_SAMPLES = 1 << 31
+RESIDENT_RESERVE_BYTES = 4 << 30
 
-    When the capture fits device memory (16 GB of HBM holds a ~2 h
-    2.048 Msps 8-bit capture), upload it ONCE and decode without touching
-    the host link again: `BlockFeeder` recognises `read_raw_device` and
-    slices blocks on device instead of re-uploading them. Mirrors the
-    source ABC surface (ref source.py:18-47) for rate/length bookkeeping;
-    `read`/`read_raw` fall back to (shimmed) downloads for host consumers.
+
+def resident_max_bytes(device=None) -> int | None:
+    """Capture bytes that may be uploaded whole to `device` (default: the
+    first JAX device): a third of its allocator limit after
+    RESIDENT_RESERVE_BYTES, for the capture, its padded copy and the
+    decode's per-sample outputs. None when the device reports no limit."""
+    stats = (device or jax.devices()[0]).memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return max(0, (int(stats["bytes_limit"]) - RESIDENT_RESERVE_BYTES) // 3)
+
+
+def fits_resident(n_samples: int, bytes_per_sample: int = 2) -> bool:
+    """Whether an n-sample capture may be decoded device-resident."""
+    if n_samples > RESIDENT_MAX_SAMPLES:
+        return False
+    cap = resident_max_bytes()
+    return cap is None or n_samples * bytes_per_sample <= cap
+
+
+class DeviceRawSource:
+    """IQ capture resident in device memory as raw interleaved uint8 bytes.
+
+    When the capture fits (`fits_resident`), upload it ONCE and decode
+    without touching the host link again: `BlockFeeder` recognises
+    `read_raw_device` and slices blocks on device instead of re-uploading
+    them. Mirrors the source ABC surface (ref source.py:18-47) for
+    rate/length bookkeeping; `read`/`read_raw` download for host consumers.
     """
 
     source_type = constants.SOURCE_IQDAT

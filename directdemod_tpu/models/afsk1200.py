@@ -5,7 +5,7 @@ FM front-end -> Butterworth bandpass 700-2700 -> mark/space quadrature
 correlator bank -> edge detection -> lookahead peak bit sync -> NRZI decode ->
 flag scan -> bit unstuffing -> CRC-16 check -> AX.25 header/payload parse.
 
-TPU design: the reference's O(N*18) nested Python correlator loop
+Device design: the reference's O(N*18) nested Python correlator loop
 (ref decode_afsk1200.py:129-142) is four 18-tap convolutions on device; edge
 detection and bit-boundary peak picking run through ops/peaks' scan-based
 detector. Bit-level framing is sparse host work.
@@ -281,22 +281,20 @@ class Afsk1200Decoder:
             info=payload[2:], start_bit=0)
 
     # ------------------------------------------------------------- top level
-    # device-resident capture cap for the fused single-dispatch path;
-    # larger captures run the blocked legacy path
-    _RESIDENT_MAX_BYTES = 4 << 30
-
     def _device_inputs(self):
-        """(device capture, n) for the fused path, or (None, n): raw bytes
-        when the source serves them (2 B/sample over the link), else the
-        complex samples."""
+        """(device capture, n) for the fused path, or (None, n) when the
+        capture does not fit the device (`sources.fits_resident`; the
+        blocked path runs then): raw bytes when the source serves them
+        (2 B/sample over the link), else the complex samples."""
+        from ..io import sources
         src = self.src
         n = int(src.length)
         if callable(getattr(src, "read_raw_device", None)):
             return src.read_raw_device(0, n), n
         if (callable(getattr(src, "read_raw", None))
-                and 2 * n <= self._RESIDENT_MAX_BYTES):
+                and sources.fits_resident(n, 2)):
             return hostio.device_put_u8(src.read_raw(0, n)), n
-        if 8 * n <= self._RESIDENT_MAX_BYTES:
+        if sources.fits_resident(n, 8):
             return hostio.device_put(src.read(0, n), dtype=jnp.complex64), n
         return None, n
 

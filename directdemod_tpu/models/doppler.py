@@ -6,7 +6,7 @@ windows over the *raw byte stream* (adc offset -127), magnitude spectra
 accumulated in groups of ~1 second, per-group argmax inside the channel band,
 10%-length rolling-mean smoothing, indexed by relative chunk position.
 
-TPU design: all window FFTs run as one batched device FFT; grouping/argmax is
+Device design: all window FFTs run as one batched device FFT; grouping/argmax is
 vectorized. The reference recomputes the whole waterfall for every chunk
 (O(chunks * full file)); the track is deterministic, so we compute it once and
 cache -- same values, ~60x less work on a one-hour capture.

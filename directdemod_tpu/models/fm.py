@@ -40,7 +40,7 @@ class FmDecoder:
         out_rate = self.audio_freq if self.strict else int(decim_rate / j2)
         from ..io.feeder import BlockFeeder
         from .frontend import DdcFmStream
-        stream = DdcFmStream(fe, dtype=self.dtype)   # pallas u8 on TPU
+        stream = DdcFmStream(fe, dtype=self.dtype)   # frontend_lowering's pick
         with BlockFeeder(self.src, PROC_CHUNKSIZE, dtype=self.dtype,
                          raw="auto") as feeder:
             for (s, e, x) in feeder:

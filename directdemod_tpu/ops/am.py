@@ -17,7 +17,7 @@ def analytic(x: jnp.ndarray) -> jnp.ndarray:
     """scipy.signal.hilbert semantics for a real 1-D signal (last axis).
 
     Routed through fftutil so ragged block lengths (e.g. the 240000-block
-    remainder) use chirp-z instead of TPU's O(n^2) dense-DFT fallback."""
+    remainder) use chirp-z instead of an O(n^2) dense-DFT fallback."""
     n = x.shape[-1]
     cdt = jnp.complex128 if x.dtype == jnp.float64 else jnp.complex64
     X = fftutil.fft_any(x.astype(cdt), axis=-1)

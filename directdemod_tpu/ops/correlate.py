@@ -8,7 +8,7 @@ Behavioral references:
   * Needle builders: the repeated-bit sync trains (ref decode_noaa.py:690-694).
 
 All correlations are FFT-based on device (the needles run 560..113k samples;
-direct conv would waste MXU cycles at those lengths).
+direct conv would waste work at those lengths).
 """
 from __future__ import annotations
 
@@ -110,9 +110,10 @@ def norm_correlate_multi_blocked(haystack: jnp.ndarray,
     `blk`-wide frames with needle-length halos and every FFT runs BATCHED
     over frames.
 
-    One multi-million-point 1-D FFT is the slow shape on TPU (measured
-    0.63 s at 3.6M on v5e); ~30 batched 135k-point FFTs computing the
-    identical correlation take 0.08 s. Energy frames share the correlation
+    One multi-million-point 1-D FFT was the slow shape on the machine this
+    was first tuned for; ~30 batched 135k-point FFTs compute the identical
+    correlation (not yet measured against one FFT on the GPU, ROADMAP S6).
+    Energy frames share the correlation
     frames (framing commutes with elementwise squaring), so the whole
     normalized A+B correlation costs two batched rffts + one batched irfft."""
     if jnp.iscomplexobj(haystack) or jnp.iscomplexobj(needles):

@@ -1,24 +1,19 @@
-"""Dense MXU-shaped byte-domain DDC: the whole `unpack -> NCO -> FIR ->
-decimate` chain (ref decode_noaa.py:617-624 / source.py:117-118 byte
-contract) as ONE aligned matmul over 128-byte rows.
+"""Dense byte-domain DDC: the whole `unpack -> NCO -> FIR -> decimate` chain
+(ref decode_noaa.py:617-624 / source.py:117-118 byte contract) as ONE
+aligned bf16 matmul over 128-byte rows.
 
-Why this shape: the round-4 Pallas kernel (ops/pallas_ddc._kernel_u8) ran q
-sliver dots of (TILE, 2J) x (2J, 2) per tile -- N=2 uses <2 % of the MXU's
-128 output columns, the (out, 1) f32 results took a 128x-padded layout, and
-the byte matrix (rows, 2J=68) itself tiled at 128/68 padding.  Measured
-ceiling: ~3.7 Gsamp/s of an ~819 GB/s HBM roofline (~1 %).
+Why this shape: a direct lowering runs one sliver dot of (outputs, 2J) x
+(2J, 2) per output block -- N=2 output columns, far too thin for a matrix
+unit. This lowering keeps the raw interleaved IQ bytes in their natural
+linear order and *chooses the math to fit the hardware*:
 
-This lowering keeps the raw interleaved IQ bytes in their natural linear
-order and *chooses the math to fit the hardware*:
-
-  * The byte stream reshapes (bitcast-free) to rows of 128 bytes -- the TPU
-    lane width, so loads are dense and unpadded.
+  * The byte stream reshapes (bitcast-free) to rows of 128 bytes, so loads
+    are dense and unpadded.
   * Outputs group by the polyphase period:  G = 128/gcd(2J, 128) consecutive
     outputs share a window of P = 2J*G/128 rows (plus a small spill).  The
     group's G complex outputs become 2G *output channels* of a single
     matmul/conv with contraction over the whole (W_rows x 128) byte window:
-    M = n_groups, K = W_rows*128 (~2.4k), N = 2G (64 for the NOAA J=34 chain)
-    -- every dimension MXU-shaped.
+    M = n_groups, K = W_rows*128 (~2.4k), N = 2G (64 for the NOAA J=34 chain).
   * The taps (including the -127.5 byte offset, the NCO modulation and the
     interleaved I/Q sign structure) are baked HOST-SIDE in fp64 into a
     structured-sparse kernel tensor ker[r, l, ch], so the device program is
@@ -26,14 +21,14 @@ order and *chooses the math to fit the hardware*:
   * Precision: the bytes are integers 0..255, EXACT in bfloat16.  The f32
     tap tensor is split into `nsplit` bf16 residual parts host-side
     (hi/mid/lo); `sum_s bytes @ part_s` with f32 accumulation reproduces
-    full f32-tap accuracy in `nsplit` single-pass MXU matmuls -- the
-    measured-equivalent of Precision.HIGHEST (6 passes) at half the cost,
-    because the byte operand never needs splitting (round-5 experiment,
-    docs/experiments.md).
+    full f32-tap accuracy in `nsplit` single-pass bf16 matmuls, because the
+    byte operand never needs splitting (docs/experiments.md D2). TF32 never
+    applies: the operands are bf16.
 
 The structured kernel wastes MACs (K ~ 2432 vs 302 live taps per output, a
-~8x pad) but converts <2 % MXU utilization into dense utilization -- a large
-net win; see BENCH_PALLAS_r05.json for the A/B.
+~8x pad; ROADMAP S7) but is one dense GEMM. On an NVIDIA H100 it runs the
+fused chain 3.4x faster than the XLA polyphase conv (bench.py; numbers in
+CHANGES.md), so `models/frontend.frontend_lowering` picks it on the GPU.
 """
 from __future__ import annotations
 
@@ -54,7 +49,7 @@ class BytePlan:
 
     Output m of the plan covers bytes seg[2*m*J .. 2*(m*J+K)) of the byte
     segment it is applied to, i.e. complex samples x[m*J .. m*J+K), exactly
-    the window contract of ops/pallas_ddc.ddc_fm_pallas_u8.
+    the window contract of ops/fir.fir_decimate.
     """
 
     def __init__(self, taps_rev: np.ndarray, stride: int, nsplit: int = 3):
@@ -170,14 +165,16 @@ class BytePlan:
 
     # -------------------------------------------------------------- oracle
     def oracle(self, seg: np.ndarray, out_len: int) -> np.ndarray:
-        """fp64 numpy reference of the identical window contract."""
-        w = self.taps_rev
-        b = np.asarray(seg, dtype=np.float64)
+        """fp64 numpy reference of the identical window contract:
+        out[m] = sum_k taps_rev[k] x[m*J + k], x the unpacked samples."""
+        b = np.asarray(seg, dtype=np.float64)[: 2 * ((out_len - 1) * self.J
+                                                     + self.K)] - 127.5
+        x = b[0::2] + 1j * b[1::2]
+        win = np.lib.stride_tricks.sliding_window_view(x, self.K)[::self.J]
         out = np.empty(out_len, dtype=np.complex128)
-        for m in range(out_len):
-            s0 = 2 * m * self.J
-            win = b[s0: s0 + 2 * self.K] - 127.5
-            out[m] = np.dot(w, win[0::2] + 1j * win[1::2])
+        step = 1 << 15
+        for m in range(0, out_len, step):
+            out[m: m + step] = win[m: m + step] @ self.taps_rev
         return out
 
 
@@ -207,8 +204,8 @@ def ddc_bytes(plan: BytePlan, seg: jnp.ndarray, c_prev: jnp.ndarray,
 @partial(jax.jit, static_argnums=(0, 4, 5))
 def ddc_fm_bytes(plan: BytePlan, seg: jnp.ndarray, rot: jnp.ndarray,
                  c_prev: jnp.ndarray, out_len: int, mode: str = "dot"):
-    """Drop-in for ops.pallas_ddc.ddc_fm_pallas_u8: fused unpack+DDC+FM from
-    raw interleaved uint8, dense-matmul lowering.  Returns (audio, c_last)."""
+    """Fused unpack+DDC+FM from raw interleaved uint8, dense-matmul
+    lowering.  Returns (audio, c_last)."""
     (re, im), c_last = ddc_bytes(plan, seg, c_prev, out_len, mode)
     c = lax.complex(re, im)
     prev = jnp.concatenate([c_prev.astype(c.dtype), c[:-1]])

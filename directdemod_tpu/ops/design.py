@@ -1,7 +1,7 @@
 """Host-side filter design (pure NumPy, float64).
 
 Tap design happens once at pipeline-build time on the host; the resulting
-coefficients are baked as constants into the jitted TPU kernels. Everything here
+coefficients are baked as constants into the jitted device kernels. Everything here
 is implemented from the textbook formulas in plain NumPy so the framework has no
 hard SciPy dependency on the compute path; tests cross-check against SciPy.
 

@@ -1,4 +1,4 @@
-"""Filter facade: the reference's filter-class surface on the TPU runtime.
+"""Filter facade: the reference's filter-class surface on the JAX runtime.
 
 Behavioral reference: `filters.py:15-326`. Each factory returns either FIR
 taps (consumed by Stream.filter / pipeline.Filter) or an IirFilter. The

@@ -7,7 +7,7 @@ path uses them in-tree (only `peakdetect` is, ref decode_afsk1200.py:170), but
 they are part of the reference's public surface, so they exist here as analysis
 utilities with the same [max_peaks, min_peaks] -> [[x, y], ...] contract.
 
-TPU design notes:
+Design notes:
   * dense work (smoothing conv, FFT interpolation, B-spline prefilter scan,
     batched window fits) runs on device;
   * the per-peak curve_fit loops of the reference collapse into *batched*
@@ -186,8 +186,9 @@ def _fit_quadratic(xw, yw):
     x0 = jnp.mean(xw, axis=1, keepdims=True)
     xc = xw - x0
     V = jnp.stack([xc * xc, xc, jnp.ones_like(xc)], axis=-1)   # (B, P, 3)
-    G = jnp.einsum("bpi,bpj->bij", V, V)
-    r = jnp.einsum("bpi,bp->bi", V, yw)
+    # HIGHEST: a default-precision f32 contraction runs in TF32 on the GPU
+    G = jnp.einsum("bpi,bpj->bij", V, V, precision=lax.Precision.HIGHEST)
+    r = jnp.einsum("bpi,bp->bi", V, yw, precision=lax.Precision.HIGHEST)
     abc = jnp.linalg.solve(G, r[..., None])[..., 0]             # y = a t^2 + b t + c
     a, b, c = abc[:, 0], abc[:, 1], abc[:, 2]
     tau = -b / (2 * a)
@@ -305,7 +306,7 @@ def _cspline_coeffs(y):
     n = y.shape[0]
     # causal init with the full-length mirror sum (scipy's exact form)
     pows = z ** jnp.arange(n, dtype=y.dtype)
-    c0 = y[0] + z * jnp.dot(pows, y)
+    c0 = y[0] + z * jnp.dot(pows, y, precision=lax.Precision.HIGHEST)
 
     def fwd(carry, yi):
         c = yi + z * carry

@@ -3,8 +3,8 @@
 Behavioral reference: the source byte contract ``(I + jQ) - (127.5 + 127.5j)``
 over interleaved uint8 pairs (ref source.py:117-118, 209).
 
-TPU-first design: the host feed is the pipeline's narrowest pipe (PCIe /
-tunnel). Uploading the *raw bytes* moves 2 bytes/sample instead of the 8
+Device design: the host feed is the pipeline's narrowest pipe (PCIe).
+Uploading the *raw bytes* moves 2 bytes/sample instead of the 8
 bytes/sample of a float32-pair complex upload, and the unpack itself becomes
 the first fused device op -- XLA folds the subtract into whatever consumes the
 samples, so the unpack is free. This replaces the host-side converter
@@ -26,10 +26,10 @@ def iq_u8_to_complex(raw: jnp.ndarray, real_dtype=jnp.float32) -> jnp.ndarray:
 
     The 1-D hot path reshapes the bytes to (rows, 256) first -- a bitcast on
     the byte stream's natural linear layout -- so the convert runs dense and
-    the deinterleave is a lane-stride shuffle instead of a 1-D stride-2
-    gather over the whole capture (which XLA lowers abysmally on TPU:
-    measured 2.59 s vs 0.035 s for 57.5M samples on v5e, round 5 -- this
-    single op dominated the whole PSK pipeline).
+    the deinterleave is a short-stride shuffle instead of a 1-D stride-2
+    gather over the whole capture (on the machine this was first tuned for,
+    that gather dominated the whole PSK pipeline; not measured on the GPU,
+    ROADMAP S2).
     """
     off = jnp.asarray(IQ_U8_OFFSET, dtype=real_dtype)
     if raw.ndim == 1 and raw.shape[0] >= 4096:

@@ -30,7 +30,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..ops.iir import IirFilter, _biquad_state_space
+from ..ops.iir import IirFilter, _biquad_state_space, _mm
 from ..utils import hostio
 
 
@@ -97,13 +97,13 @@ def _sharded_lfilter(mesh, filt: IirFilter, x2d, zi):
                                         consts_tail[i], np_last)
             gg = lax.all_gather(g, "time")             # (ndev, 2)
             # s_in = zi . M^pos + sum_{j<pos} g_j . M^(pos-1-j)
-            s_in = zis[i] @ Mp[pos]
+            s_in = _mm(zis[i], Mp[pos])
             for j in range(ndev - 1):
-                term = gg[j] @ Mp[jnp.clip(pos - 1 - j, 0, ndev)]
+                term = _mm(gg[j], Mp[jnp.clip(pos - 1 - j, 0, ndev)])
                 s_in = s_in + jnp.where(j < pos, term, jnp.zeros_like(term))
-            corr = (W @ s_in).astype(y0.dtype)
+            corr = _mm(W, s_in).astype(y0.dtype)
             y = y0 + corr
-            z_out.append(s_in @ M + g)
+            z_out.append(_mm(s_in, M) + g)
         return y[None], jnp.stack(z_out).reshape(-1)[None].astype(zi_in.dtype)
 
     return jax.shard_map(

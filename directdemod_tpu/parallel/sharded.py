@@ -11,7 +11,8 @@ inter-chunk coupling in the whole front-end is:
   * NCO phase        -> folded into the taps (no comms)
 
 so one `ppermute` halo exchange of (ntaps-1+stride) samples per wave makes the
-sharded result bit-identical to the sequential stream. Waves keep HBM bounded:
+sharded result compute the sequential stream's window dots (tests hold it to
+1e-9 at fp64). Waves keep device memory bounded:
 ndev chunks in flight, the last chunk's tail carried to the next wave on host.
 """
 from __future__ import annotations

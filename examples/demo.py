@@ -34,7 +34,7 @@ def main():
     if "--mesh" in sys.argv:
         mesh = [f"--mesh={sys.argv[sys.argv.index('--mesh') + 1]}"]
     if "--cpu" in sys.argv:
-        # run on host CPU: functional checks shouldn't grab a shared TPU
+        # run on host CPU: functional checks shouldn't grab a shared GPU
         # (env vars alone don't override the accelerator plugin)
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -56,7 +56,7 @@ def main():
 
     print("=== AFSK1200 / APRS ===")
     flags = [0, 1, 1, 1, 1, 1, 1, 0]
-    wire = flags * 3 + stuff_bits(make_ax25_frame(info="demo: tpu aprs!")) + flags * 3
+    wire = flags * 3 + stuff_bits(make_ax25_frame(info="demo: aprs!")) + flags * 3
     iq2 = afsk_modulate(wire, FS, offset_hz=30000)
     wav2 = "SDRSharp_20260817_000001Z_145795000Hz_IQ.wav"
     write_wav(wav2, iq2, FS)

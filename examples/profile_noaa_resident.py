@@ -35,7 +35,6 @@ def main():
 
     from apt_synth import synthesize
     import jax
-    import jax.numpy as jnp
     from directdemod_tpu import constants as K
     from directdemod_tpu.io.sources import DeviceRawSource
     from directdemod_tpu.models import apt
@@ -71,15 +70,13 @@ def main():
     res = {}
 
     def sync_kernel():
-        out = _resident_sync_kernel(fe, raw, needles, src.length, AM_BLOCK,
-                                    k, float(K.NOAA_PEAKHEIGHTWIGGLE), cap,
-                                    False)
-        # force with a scalar download barrier
-        float(hostio.device_get(jnp.sum(out[0][:8])))
+        out = jax.block_until_ready(_resident_sync_kernel(
+            fe, raw, needles, src.length, AM_BLOCK, k,
+            float(K.NOAA_PEAKHEIGHTWIGGLE), cap))
         res["out"] = out
         return out
 
-    t("resident_sync_kernel+barrier", sync_kernel, reps=2)
+    t("resident_sync_kernel", sync_kernel, reps=2)
     audio, packed, cors, thr = res["out"]
 
     t("packed_download(%.2fMB)" % (packed.size * 4 / 1e6),

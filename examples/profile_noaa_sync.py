@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the NOAA crude-sync + image-stage sub-ops on the real TPU.
+"""Profile the NOAA crude-sync + image-stage sub-ops on the default device.
 
 Times each candidate bottleneck of `_crude_sync_kernel` / `_filt_env_kernel`
 separately (warm, post-compile) so the round-4 perf work targets the real

@@ -1,4 +1,4 @@
-// Native IO runtime: hot host-side conversions feeding the TPU pipeline.
+// Native IO runtime: hot host-side conversions feeding the device pipeline.
 //
 // The framework's device ops consume complex64; captures arrive as interleaved
 // uint8 IQ bytes (SDRSharp wav / raw dat; see directdemod_tpu/io/sources.py

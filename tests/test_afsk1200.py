@@ -56,7 +56,7 @@ def _bytes_to_wire_bits(data: bytes) -> list:
 
 
 def make_ax25_frame(dest="APRS  ", source="N0CALL", ssid_d=0x60, ssid_s=0x61,
-                    info="hello tpu world!") -> list:
+                    info="hello aprs world!") -> list:
     """Frame bits (unstuffed, no flags): header + control + pid + info + FCS."""
     hdr = bytes((ord(c) << 1) & 0xFF for c in dest) + bytes([ssid_d]) \
         + bytes((ord(c) << 1) & 0xFF for c in source) + bytes([ssid_s | 0x01])
@@ -101,7 +101,7 @@ def afsk_modulate(bits_with_flags: list, fs: int, offset_hz: float,
 
 @pytest.fixture(scope="module")
 def aprs_capture():
-    frame = make_ax25_frame(info="hello tpu world!")
+    frame = make_ax25_frame(info="hello aprs world!")
     flags = [0, 1, 1, 1, 1, 1, 1, 0]
     wire = flags * 3 + stuff_bits(frame) + flags * 3
     iq = afsk_modulate(wire, FS, offset_hz=12000)
@@ -118,11 +118,11 @@ def test_afsk_end_to_end(aprs_capture):
     assert dec.useful == 1
     assert len(frames) >= 1
     f = frames[-1]
-    assert f.info == "hello tpu world!"
+    assert f.info == "hello aprs world!"
     assert f.source.startswith("N0CALL")
     assert f.destination.startswith("APRS")
     assert f.control == 0x03 and f.protocol == 0xF0
-    assert dec.get_msg() == "hello tpu world!"
+    assert dec.get_msg() == "hello aprs world!"
 
 
 def test_nrzi_roundtrip():

@@ -188,9 +188,11 @@ def test_cli_resident_noaa(noaa_wav, tmp_path):
 
 
 def test_cli_resident_capacity_fallback(noaa_wav, tmp_path, monkeypatch):
-    """A capture over the HBM cap keeps the blocked feed (and still
-    decodes)."""
-    monkeypatch.setattr(cli, "RESIDENT_MAX_BYTES", 1024)
+    """A capture over the resident capacity keeps the blocked feed (and
+    still decodes)."""
+    from directdemod_tpu.io import sources
+    monkeypatch.setattr(sources, "resident_max_bytes",
+                        lambda device=None: 1024)
     rep = str(tmp_path / "rep.json")
     out = str(tmp_path / "cap")
     rc = cli.main(["-c", "137590000", "-f", "137620000", "-d", "noaa",

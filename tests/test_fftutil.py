@@ -1,5 +1,5 @@
 """Arbitrary-length FFT parity: fftutil vs numpy on awkward (non-5-smooth)
-lengths — the sizes where XLA:TPU would otherwise emit an O(n^2) dense DFT.
+lengths — the sizes that fftutil routes through Bluestein's chirp-z.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -72,9 +72,9 @@ def test_resample_awkward_lengths(rng):
 
 def test_bluestein_large_realistic_n(rng):
     """ADVICE r1: the motivating ~136k-sample Hilbert remainder block, in
-    complex64 — the chirp multiplies run in c64 on TPU, so the error is
+    complex64 — the chirp multiplies run in c64 on device, so the error is
     larger than the small-n cases; the documented bound is 2e-4 relative
-    (observed ~3e-5 on CPU c64, leaving headroom for TPU rounding)."""
+    (observed ~3e-5 on CPU c64, leaving headroom for device rounding)."""
     n = 136470                      # 2 * 3^3 * 7 * 19^2: non-smooth, large
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
     got = np.asarray(fftutil.fft_any(jnp.asarray(x)))

@@ -1,5 +1,5 @@
 """Sharded == sequential: the chunked-stream parity contract, on an 8-device
-virtual CPU mesh (the TPU analog of the reference's chunked==unchunked
+virtual CPU mesh (the multi-device analog of the reference's chunked==unchunked
 experiments 3/5/6)."""
 import numpy as np
 import pytest

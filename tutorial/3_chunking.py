@@ -2,7 +2,7 @@
 
 The chain carries all cross-block state (filter tails, FM boundary sample,
 decimator phase) in an explicit pytree, so any block size gives bit-identical
-output -- and `run_sharded` spreads the blocks over a TPU mesh.
+output -- and `run_sharded` spreads the blocks over a device mesh.
 """
 import sys
 

@@ -1,15 +1,15 @@
 """Tutorial 4: multi-chip decoding over a device mesh.
 
 The reference processes one chunk at a time on one core; here the SAME
-chunked-stream semantics shard over a `(time, channel)` TPU mesh:
+chunked-stream semantics shard over a `(time, channel)` device mesh:
 
   * the `time` axis splits a long capture into device-resident waves, with
-    filter tails exchanged as ppermute halos (bit-identical to sequential —
+    filter tails exchanged as ppermute halos (the same windows as sequential —
     the chunk-state contract of ref chunker.py:54-84 made collective);
   * the `channel` axis decodes independent `-f` channels concurrently
     (ref main.py:147's sequential loop made parallel).
 
-No TPU pod handy? Virtual CPU devices exercise the identical program:
+No multi-GPU host handy? Virtual CPU devices exercise the identical program:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 python tutorial/4_mesh.py
 """
